@@ -1,8 +1,8 @@
-// Native graph-store core for ar_slam_tpu.
+// Native graph-store core for arslam.
 //
 // The reference keeps its constraint graph in C++ (ArSlamSolver's deques +
-// uid->handle hash maps, ar_slam_util.hpp:477-492).  This is the TPU-native
-// equivalent: a host-side C++ engine owning the capture/tag/block tables,
+// uid->handle hash maps, ar_slam_util.hpp:477-492).  This is the
+// equivalent here: a host-side C++ engine owning the capture/tag/block tables,
 // uid interning, adjacency, BFS ordering with init-block assignment
 // (≙ addConnectedCaptures, ar_slam_util.cpp:869-885), and padded
 // block-array export for the device solver — exposed through a C ABI for

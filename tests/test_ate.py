@@ -4,10 +4,10 @@ against synthetic ground truth."""
 import numpy as np
 import pytest
 
-from ar_slam_tpu.config import ArSlamConfig
-from ar_slam_tpu.solve import solve_batch
-from ar_slam_tpu.utils.ate import ate_rmse, camera_positions, umeyama_alignment
-from ar_slam_tpu.utils.synthetic import make_synthetic_map
+from arslam.config import ArSlamConfig
+from arslam.solve import solve_batch
+from arslam.utils.ate import ate_rmse, camera_positions, umeyama_alignment
+from arslam.utils.synthetic import make_synthetic_map
 
 
 def test_umeyama_recovers_similarity():

@@ -4,14 +4,14 @@ The IAC constraints a·f² = b are noise-dominated for near-frontal tags,
 and each naive aggregate fails differently (ratio-median with positivity
 censoring: ~70% high; a²-weighted least squares: ~80% low — both were
 measured failures that respectively stranded the 10k-tag construction and
-the TPU demo solve in wrong-focal basins, round 4).  The estimator must
+the f32 demo solve in wrong-focal basins, round 4).  The estimator must
 be accurate where signal exists and honest (None) where it doesn't.
 """
 
 import numpy as np
 
-from ar_slam_tpu.core.calib import estimate_focal
-from ar_slam_tpu.utils.synthetic import make_synthetic_map
+from arslam.core.calib import estimate_focal
+from arslam.utils.synthetic import make_synthetic_map
 
 ARUCO_SIZE = 0.0635
 
@@ -49,7 +49,7 @@ def test_estimate_focal_small_real_dataset_regime():
 
     import yaml
 
-    from ar_slam_tpu.graph import MapStore
+    from arslam.graph import MapStore
 
     fixture = os.path.join(os.path.dirname(__file__), "fixtures",
                            "demo_detections.yaml")

@@ -9,36 +9,17 @@ import pytest
 import yaml
 from PIL import Image
 
-from ar_slam_tpu.detect import detect_markers
-from ar_slam_tpu.detect.dictionaries import get_dictionary
-from ar_slam_tpu.detect.gen import generate_pages, render_marker
-from ar_slam_tpu.detect.reference import (
+from arslam.detect import detect_markers
+from arslam.detect.dictionaries import get_dictionary
+from arslam.detect.gen import generate_pages, place_marker, render_marker
+from arslam.detect.reference import (
     adaptive_threshold,
     convex_hull,
     decimate_to_quad,
-    homography_unit_square,
     otsu_threshold,
 )
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
-
-
-def place_marker(canvas, marker, quad):
-    """Warp a marker image onto canvas at the given quad (TL,TR,BR,BL) via
-    inverse-homography sampling."""
-    h = homography_unit_square(quad.astype(float))
-    hinv = np.linalg.inv(h)
-    ys, xs = np.mgrid[0:canvas.shape[0], 0:canvas.shape[1]]
-    pts = np.stack([xs, ys, np.ones_like(xs)], axis=-1).astype(float)
-    uvw = pts @ hinv.T
-    uv = uvw[..., :2] / uvw[..., 2:3]
-    inside = (uv[..., 0] >= 0) & (uv[..., 0] < 1) & (uv[..., 1] >= 0) & (uv[..., 1] < 1)
-    mh, mw = marker.shape
-    mx = np.clip((uv[..., 0] * mw).astype(int), 0, mw - 1)
-    my = np.clip((uv[..., 1] * mh).astype(int), 0, mh - 1)
-    vals = marker[my, mx]
-    canvas[inside] = vals[inside]
-    return canvas
 
 
 @pytest.mark.parametrize("dict_name,marker_id", [("4X4_50", 7), ("4X4_50", 23),

@@ -7,16 +7,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ar_slam_tpu.graph import export_arrays
-from ar_slam_tpu.parallel import (
+from arslam.graph import export_arrays
+from arslam.parallel import (
     block_mesh,
     lm_solve_dist,
     partition_blocks,
     prepare_tag_shards,
 )
-from ar_slam_tpu.solve import lm_solve
-from ar_slam_tpu.solve.lm import LMConfig
-from ar_slam_tpu.utils.synthetic import make_synthetic_map
+from arslam.solve import lm_solve
+from arslam.solve.lm import LMConfig
+from arslam.utils.synthetic import make_synthetic_map
 
 ARUCO_SIZE = 0.0635
 
@@ -71,8 +71,8 @@ def test_dist_matches_single_device(problem):
 def test_wave_driver_dist_matches_single():
     """The full BFS wave driver (seeding + incremental attach + LM per wave)
     gives the same map on an 8-device mesh as on one device."""
-    from ar_slam_tpu.config import ArSlamConfig, SolverConfig
-    from ar_slam_tpu.solve.batch import solve
+    from arslam.config import ArSlamConfig, SolverConfig
+    from arslam.solve.batch import solve
 
     def fresh_store():
         store, _ = make_synthetic_map(n_tags=12, n_caps=6, seed=3,
@@ -104,8 +104,8 @@ def test_wave_driver_dist_polish_matches_single():
     capped at max_iterations on BOTH paths (the static loop bound is
     inflated to cover the polish — ADVICE r3), and the final polish pass
     must actually run on the mesh path (it was a silent no-op)."""
-    from ar_slam_tpu.config import ArSlamConfig, SolverConfig
-    from ar_slam_tpu.solve.batch import solve
+    from arslam.config import ArSlamConfig, SolverConfig
+    from arslam.solve.batch import solve
 
     def fresh_store():
         store, _ = make_synthetic_map(n_tags=12, n_caps=6, seed=3,
@@ -130,7 +130,7 @@ def test_wave_driver_dist_polish_matches_single():
     # runner-level budget assertions (the parity above can mask the bug if
     # the waves happen to converge): a dist wave must respect the per-wave
     # budget, not the inflated static bound; polish must run more
-    from ar_slam_tpu.solve.batch import _WaveRunner
+    from arslam.solve.batch import _WaveRunner
 
     import dataclasses
 
@@ -152,8 +152,8 @@ def test_wave_driver_dist_polish_matches_single():
 @pytest.mark.slow
 def test_incremental_driver_dist_matches_single():
     """solve_incremental with a mesh == without (same sweeps, same map)."""
-    from ar_slam_tpu.config import ArSlamConfig, SolverConfig
-    from ar_slam_tpu.solve.batch import solve_incremental
+    from arslam.config import ArSlamConfig, SolverConfig
+    from arslam.solve.batch import solve_incremental
 
     def fresh_store():
         store, _ = make_synthetic_map(n_tags=10, n_caps=5, seed=7,
@@ -227,7 +227,7 @@ def test_dist_non_power_of_two_mesh(problem):
 def test_dist_runner_jit_cache_reuse(problem):
     """Repeated lm_solve_dist calls with the same mesh/shapes/config must
     reuse the jitted program (a serve loop cannot re-trace per batch)."""
-    from ar_slam_tpu.parallel.dist_lm import _dist_lm_runner
+    from arslam.parallel.dist_lm import _dist_lm_runner
 
     store, arrs, cap_poses, tag_poses = problem
     config = LMConfig(max_iterations=2)
@@ -251,7 +251,7 @@ def test_collective_count_is_packed(problem):
     ~9 defs)."""
     import re
 
-    from ar_slam_tpu.parallel.dist_lm import (TagShardedProblem,
+    from arslam.parallel.dist_lm import (TagShardedProblem,
                                               _dist_lm_runner)
 
     _, arrs, cap_poses, tag_poses = problem

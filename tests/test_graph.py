@@ -8,8 +8,8 @@ import numpy as np
 import pytest
 import yaml
 
-from ar_slam_tpu.graph import MapStore, export_arrays, load_yaml, save_yaml
-from ar_slam_tpu.graph.arrays import bucket_size, write_back
+from arslam.graph import MapStore, export_arrays, load_yaml, save_yaml
+from arslam.graph.arrays import bucket_size, write_back
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 
@@ -170,7 +170,7 @@ def test_export_subset_by_cap_order():
 def test_yaml_fast_loader_matches_fallback():
     """The strict fast parser and the PyYAML fallback must build identical
     stores from the same machine-written text."""
-    import ar_slam_tpu.graph.yamlio as yamlio
+    import arslam.graph.yamlio as yamlio
 
     store = load_fixture_store()
     rng = np.random.default_rng(3)
@@ -215,7 +215,7 @@ def test_yaml_fast_loader_matches_fallback():
 def test_yaml_hand_edited_falls_back():
     """Reformatted (hand-edited / reference-written) YAML must still load —
     through the PyYAML fallback — with identical content."""
-    import ar_slam_tpu.graph.yamlio as yamlio
+    import arslam.graph.yamlio as yamlio
 
     text = """\
 # hand-edited checkpoint
@@ -276,3 +276,41 @@ def test_bulk_add_blocks_matches_add_block():
         ea, eb = one._native.export_blocks(), bulk._native.export_blocks()
         for x, y in zip(ea, eb):
             np.testing.assert_array_equal(x, y)
+
+
+def test_yaml_roundtrip_without_pyyaml(monkeypatch, tmp_path):
+    """Machine-written maps save and load through the NumPy fast path with
+    PyYAML unimportable."""
+    import sys
+
+    from arslam.utils.synthetic import make_synthetic_map
+
+    store, _ = make_synthetic_map(n_tags=9, n_caps=5, seed=2)
+    for i, cap in enumerate(store.captures):
+        cap.inv_pose[:] = 0.1 * (i + 1)
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    path = tmp_path / "map.yaml"
+    save_yaml(store, str(path))
+    back = MapStore()
+    load_yaml(back, str(path))
+    assert back.stats() == {**store.stats(), "unsolved": 0}
+    for a, b in zip(store.captures, back.captures):
+        assert a.uid == b.uid
+        np.testing.assert_allclose(a.inv_pose, b.inv_pose)
+    np.testing.assert_allclose(
+        np.stack([b.corners for b in store.blocks]),
+        np.stack([b.corners for b in back.blocks]))
+
+
+def test_graph_imports_without_pyyaml():
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("import sys; sys.modules['yaml'] = None; "
+            "import arslam.graph, arslam.pipeline.engine; print('ok')")
+    out = subprocess.run([sys.executable, "-c", code], cwd=repo,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "JAX_PLATFORMS": "cpu"})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

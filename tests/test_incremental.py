@@ -5,10 +5,10 @@ and disconnected captures parked until a connecting tag arrives."""
 import pytest
 import numpy as np
 
-from ar_slam_tpu.config import ArSlamConfig
-from ar_slam_tpu.graph import MapStore
-from ar_slam_tpu.solve import solve_incremental
-from ar_slam_tpu.utils.synthetic import make_synthetic_map
+from arslam.config import ArSlamConfig
+from arslam.graph import MapStore
+from arslam.solve import solve_incremental
+from arslam.utils.synthetic import make_synthetic_map
 
 
 def detections_of(store, cap):
@@ -78,7 +78,7 @@ def test_optimize_every_batches_waves():
     (reference-parity) schedule."""
     import dataclasses
 
-    from ar_slam_tpu.solve.batch import solve
+    from arslam.solve.batch import solve
 
     def run(every):
         store, _ = make_synthetic_map(n_tags=12, n_caps=6, seed=11,
@@ -106,11 +106,11 @@ def test_engine_map_6x6_scene(tmp_path):
 
     from PIL import Image
 
-    from ar_slam_tpu.config import ArSlamConfig
-    from ar_slam_tpu.detect.gen import render_marker
-    from ar_slam_tpu.graph import MapStore, load_yaml
-    from ar_slam_tpu.pipeline.engine import ArSlamEngine
-    from tests.test_detect import place_marker
+    from arslam.config import ArSlamConfig
+    from arslam.detect.gen import render_marker
+    from arslam.graph import MapStore, load_yaml
+    from arslam.pipeline.engine import ArSlamEngine
+    from arslam.detect.gen import place_marker
 
     rng = np.random.default_rng(5)
     # 3 views of 4 tags in a row; camera shifts between views
@@ -136,7 +136,7 @@ def test_engine_map_6x6_scene(tmp_path):
     cfg = dataclasses.replace(
         cfg, detect=dataclasses.replace(cfg.detect,
                                         dictionaries=("6X6_250",)))
-    engine = ArSlamEngine(config=cfg, use_tpu_detector=False)
+    engine = ArSlamEngine(config=cfg, use_device_detector=False)
     engine.add_images(paths)
     summary = engine.solve()
     out = tmp_path / "map6.yaml"
@@ -160,10 +160,10 @@ def test_batched_construction_full_path_converges():
     import dataclasses
     import io
 
-    from ar_slam_tpu.config import ArSlamConfig, SolverConfig
-    from ar_slam_tpu.graph import MapStore, load_yaml, save_yaml
-    from ar_slam_tpu.solve.batch import solve
-    from ar_slam_tpu.utils.synthetic import make_synthetic_map
+    from arslam.config import ArSlamConfig, SolverConfig
+    from arslam.graph import MapStore, load_yaml, save_yaml
+    from arslam.solve.batch import solve
+    from arslam.utils.synthetic import make_synthetic_map
 
     store, truth = make_synthetic_map(n_tags=200, n_caps=80, seed=2,
                                       noise_px=0.3)

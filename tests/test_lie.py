@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 from scipy.spatial.transform import Rotation
 
-from ar_slam_tpu.core import lie
+from arslam.core import lie
 
 RNG = np.random.default_rng(42)
 

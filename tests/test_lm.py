@@ -8,24 +8,24 @@ import numpy as np
 import pytest
 import yaml
 
-from ar_slam_tpu.config import ArSlamConfig
-from ar_slam_tpu.graph import MapStore, export_arrays
-from ar_slam_tpu.solve import lm_solve, solve_batch
-from ar_slam_tpu.solve.lm import LMConfig
-from ar_slam_tpu.solve.batch import rmse_from_cost
-from ar_slam_tpu.solve.residuals import total_cost
-from ar_slam_tpu.utils.synthetic import make_synthetic_map
+from arslam.config import ArSlamConfig
+from arslam.graph import MapStore, export_arrays
+from arslam.solve import lm_solve, solve_batch
+from arslam.solve.lm import LMConfig
+from arslam.solve.batch import rmse_from_cost
+from arslam.solve.residuals import total_cost
+from arslam.utils.synthetic import make_synthetic_map
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 ARUCO_SIZE = 0.0635
 
-# dtype-aware recovery floor.  CPU (x64) reaches true machine-zero; the
-# chip (AR_SLAM_TEST_TPU, f32) floors at ~0.02 px (measured): the per-block
-# assembly is exact (reduce fusions), but the REDUCED-SYSTEM products of
-# the Schur elimination run bf16 on the MXU, and the trust region absorbs
-# the slightly-wrong steps at that level rather than below it.  0.05 px is
-# 6x the measured 9-tag floor, 15x below the 0.3 px observation noise of
-# any real problem, and ~200x below a broken LM's 8-40 px basin.
+# dtype-aware recovery floor.  CPU (x64) reaches true machine-zero; an
+# f32 run floors higher: the per-block assembly is exact (reduce fusions),
+# but the REDUCED-SYSTEM products of the Schur elimination may run at
+# reduced matmul precision, and the trust region absorbs the slightly-
+# wrong steps at that level rather than below it.  0.05 px is 15x below
+# the 0.3 px observation noise of any real problem, and ~200x below a
+# broken LM's 8-40 px basin.
 import jax as _jax
 
 _F64 = bool(_jax.config.jax_enable_x64)
@@ -89,7 +89,7 @@ def test_lm_cost_never_increases():
 def scipy_reference_solve(store, max_nfev=200):
     """Ceres-equivalent CPU reference: scipy TRF over the same residuals.
 
-    Establishes the PR1 baseline RMSE the TPU solver must match
+    Establishes the PR1 baseline RMSE the device solver must match
     (BASELINE.md target #1)."""
     from scipy.optimize import least_squares
     from scipy.spatial.transform import Rotation
@@ -224,7 +224,7 @@ def test_radial_distortion_calibration():
     fit to sub-0.1px only when enable_distortion is on, and the solver
     recovers the radial coefficients; the parity default leaves l1, l2
     untouched at zero."""
-    from ar_slam_tpu.graph.arrays import export_arrays
+    from arslam.graph.arrays import export_arrays
 
     l1, l2 = -0.15, 0.05
     store, truth = make_synthetic_map(
@@ -287,8 +287,8 @@ def test_grouped_assembly_matches_flat():
     assemble blocks exactly (up to summation order); the capture-sparse
     coupling blocks scatter back to the dense hpt."""
     import jax
-    from ar_slam_tpu.solve.residuals import linearize
-    from ar_slam_tpu.solve.schur import (
+    from arslam.solve.residuals import linearize
+    from arslam.solve.schur import (
         assemble, assemble_grouped, group_blocks_by_tag)
 
     arrs, cap_poses, tag_poses = _perturbed_problem()
@@ -376,15 +376,15 @@ def test_lm_grouped_matches_flat_solve():
 
 
 def test_grouped_assembly_exact_under_bf16_default():
-    """TPU's default matmul precision rounds f32 einsum inputs to bf16.
-    The capture-side reductions must stay exact anyway — round 1 routed
-    them through one-hot matmuls (needing precision=HIGHEST); the sparse
-    layout's gather + reshape-sum adds exactly by construction, and this
-    guard keeps it that way (without exactness the incremental solver
-    diverged on TPU: 424 px vs 0.32 px on the 200-tag map run)."""
+    """An accelerator's default matmul precision may round f32 einsum
+    inputs (bf16, TF32).  The capture-side reductions must stay exact
+    anyway — round 1 routed them through one-hot matmuls (needing
+    precision=HIGHEST); the sparse layout's gather + reshape-sum adds
+    exactly by construction, and this guard keeps it that way (without
+    exactness the incremental solver diverged at the 200-tag map)."""
     import jax
-    from ar_slam_tpu.solve.residuals import linearize
-    from ar_slam_tpu.solve.schur import (
+    from arslam.solve.residuals import linearize
+    from arslam.solve.schur import (
         assemble, assemble_grouped, group_blocks_by_tag)
 
     arrs, cap_poses, tag_poses = _perturbed_problem()
@@ -478,7 +478,7 @@ def test_huber_loss_resists_outlier():
             aruco_size=ARUCO_SIZE,
             config=LMConfig(max_iterations=100, loss=loss, loss_scale=4.0))
         # evaluate TRUE (unweighted) rmse on the clean blocks only
-        from ar_slam_tpu.solve.residuals import residuals_only
+        from arslam.solve.residuals import residuals_only
         mask = arrs.block_mask.copy()
         mask[b] = False
         r = residuals_only(cam, caps, tags, jnp.asarray(arrs.cap_idx),
@@ -492,7 +492,7 @@ def test_huber_loss_resists_outlier():
     rmse_huber = run("huber")
     # huber bounds the outlier's influence (L1 tail) — it does not zero it,
     # so expect a small residual bias, well below the trivial-loss drag
-    # (measured 0.35 vs 2.5 px on TPU f32; 0.53 vs 1.6 on CPU f64)
+    # (measured 0.53 vs 1.6 px on CPU f64)
     assert rmse_huber < 0.6, rmse_huber
     assert rmse_trivial > 1.0, rmse_trivial
     assert rmse_huber < 0.5 * rmse_trivial, (rmse_huber, rmse_trivial)
@@ -584,7 +584,7 @@ def test_lm_termination_reasons():
     the gradient test fires on a problem started at its optimum (||J^T
     r||_inf ~ 0 for exact observations at truth), function_tolerance fires
     on a perturbed solve, and an exhausted budget reports NO_CONVERGENCE."""
-    from ar_slam_tpu.solve.lm import TERMINATION_REASONS
+    from arslam.solve.lm import TERMINATION_REASONS
 
     store, truth = make_synthetic_map(n_tags=9, n_caps=5, seed=1)
     arrs = export_arrays(store)
@@ -631,7 +631,7 @@ def test_lm_gradient_tolerance_fires_mid_run():
     still terminate — via the gradient test — once LM drives ||J^T r||_inf
     under gradient_tolerance (exact observations: the gradient at the
     optimum is ~1e-8, see test_lm_termination_reasons)."""
-    from ar_slam_tpu.solve.lm import TERMINATION_REASONS
+    from arslam.solve.lm import TERMINATION_REASONS
 
     store, truth = make_synthetic_map(n_tags=9, n_caps=5, seed=1)
     arrs = export_arrays(store)

@@ -7,12 +7,12 @@ import numpy as np
 import pytest
 import yaml
 
-from ar_slam_tpu.config import ArSlamConfig
-from ar_slam_tpu.graph import MapStore
-from ar_slam_tpu.solve import localize_many, solve_batch
-from ar_slam_tpu.utils.synthetic import make_synthetic_map
+from arslam.config import ArSlamConfig
+from arslam.graph import MapStore
+from arslam.solve import localize_many, solve_batch
+from arslam.utils.synthetic import make_synthetic_map
 
-from tests.test_lm import load_demo_store
+from test_lm import load_demo_store
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 

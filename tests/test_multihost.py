@@ -4,7 +4,7 @@ Unlike tests/test_dist.py (virtual 8-device mesh inside ONE process), this
 spawns 2 separate Python processes that join one jax.distributed runtime
 over localhost (gloo CPU collectives) and run the tag-sharded solve over a
 global mesh where each controller addresses only its own device — the same
-placement regime as a real TPU pod across hosts (SURVEY.md §5.8).
+placement regime as a real multi-host cluster (SURVEY.md §5.8).
 """
 
 import os
@@ -23,8 +23,6 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-@pytest.mark.skipif(os.environ.get("AR_SLAM_TEST_TPU"),
-                    reason="cpu multi-process simulation only")
 @pytest.mark.slow
 def test_two_process_solve_matches_single_device():
     nproc = 2
@@ -32,7 +30,6 @@ def test_two_process_solve_matches_single_device():
     env = dict(os.environ)
     # one local CPU device per process -> collectives MUST cross processes
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=1"
-    env.pop("AR_SLAM_TEST_TPU", None)
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
 
@@ -66,8 +63,6 @@ def test_two_process_solve_matches_single_device():
     assert len(costs) == 1, costs
 
 
-@pytest.mark.skipif(os.environ.get("AR_SLAM_TEST_TPU"),
-                    reason="cpu multi-process simulation only")
 @pytest.mark.slow
 def test_cli_multihost_resolve(tmp_path):
     """`arslam map map.yaml --multihost ...` run as 2 identical controller
@@ -77,7 +72,7 @@ def test_cli_multihost_resolve(tmp_path):
     import numpy as np
     import yaml
 
-    from ar_slam_tpu.graph import MapStore, save_yaml
+    from arslam.graph import MapStore, save_yaml
 
     fixtures = os.path.join(os.path.dirname(__file__), "fixtures")
     with open(os.path.join(fixtures, "demo_detections.yaml")) as f:
@@ -96,13 +91,12 @@ def test_cli_multihost_resolve(tmp_path):
     port = _free_port()
     env = dict(os.environ)
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=1"
-    env.pop("AR_SLAM_TEST_TPU", None)
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
 
     procs = [
         subprocess.Popen(
-            [sys.executable, "-m", "ar_slam_tpu.cli", "map", str(map_in),
+            [sys.executable, "-m", "arslam.cli", "map", str(map_in),
              "-o", str(out_fn), "--platform", "cpu",
              "--multihost", f"127.0.0.1:{port},2,{pid}"],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

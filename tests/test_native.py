@@ -6,9 +6,9 @@ import time
 import numpy as np
 import pytest
 
-from ar_slam_tpu.graph import MapStore, export_arrays
-from ar_slam_tpu.graph.native import available
-from ar_slam_tpu.utils.synthetic import make_synthetic_map
+from arslam.graph import MapStore, export_arrays
+from arslam.graph.native import available
+from arslam.utils.synthetic import make_synthetic_map
 
 pytestmark = pytest.mark.skipif(not available(),
                                 reason="native core not built")
@@ -58,8 +58,8 @@ def test_native_store_parity_bfs_and_export():
 
 def test_native_store_solves_demo():
     """End-to-end: solver runs identically on a native-backed store."""
-    from ar_slam_tpu.config import ArSlamConfig
-    from ar_slam_tpu.solve import solve_batch
+    from arslam.config import ArSlamConfig
+    from arslam.solve import solve_batch
 
     py, nat = build_pair(n_tags=9, n_caps=5, seed=4)
     s1 = solve_batch(py, ArSlamConfig())
@@ -106,7 +106,7 @@ def test_native_jpeg_decode_matches_pil():
     import numpy as np
     import pytest
 
-    from ar_slam_tpu.pipeline import fast_decode
+    from arslam.pipeline import fast_decode
 
     if not fast_decode.available():
         pytest.skip("libarslam_jpeg.so not built")
@@ -124,7 +124,7 @@ def test_native_jpeg_decode_matches_pil():
 
 
 def test_native_jpeg_decode_bad_inputs(tmp_path):
-    from ar_slam_tpu.pipeline import fast_decode
+    from arslam.pipeline import fast_decode
     import pytest
 
     if not fast_decode.available():

@@ -6,11 +6,11 @@ import jax
 import numpy as np
 import pytest
 
-from ar_slam_tpu.detect.gen import render_marker
-from ar_slam_tpu.detect.tpu_detect import DetectParams, detect_batch
-from ar_slam_tpu.parallel.detect import detect_batch_sharded, image_mesh
+from arslam.detect.gen import render_marker
+from arslam.detect.device_detect import DetectParams, detect_batch
+from arslam.parallel.detect import detect_batch_sharded, image_mesh
 
-from tests.test_detect import place_marker
+from arslam.detect.gen import place_marker
 
 
 def _render_batch(n):

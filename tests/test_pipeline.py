@@ -9,10 +9,10 @@ import numpy as np
 import pytest
 import yaml
 
-from ar_slam_tpu.cli import main as cli_main
-from ar_slam_tpu.graph import MapStore, load_yaml
-from ar_slam_tpu.pipeline.ingest import ImageIngest, filename_no_ext
-from ar_slam_tpu.pipeline.merge import MergeDetections
+from arslam.cli import main as cli_main
+from arslam.graph import MapStore, load_yaml
+from arslam.pipeline.ingest import ImageIngest, filename_no_ext
+from arslam.pipeline.merge import MergeDetections
 
 IMAGES = [f"/root/reference/ar_slam/resources/images/img{i}.jpg"
           for i in (1, 2, 3, 4)]
@@ -192,7 +192,7 @@ def test_cli_map_parity_mode(tmp_path):
     # per-basin quality bounds: an IN-BASIN regression (e.g. 12 px -> 30 px
     # inside the plateau, or 0.5 -> 3 px in the converged basin) must fail
     # the guard, not just "either basin with finite poses"
-    from ar_slam_tpu.utils.audit import compare_projections
+    from arslam.utils.audit import compare_projections
 
     rows = compare_projections(store)
     # audit rmse_px is per-corner distance; /sqrt(2) converts to the
@@ -214,7 +214,7 @@ def test_parity_f64_escapes_plateau_on_cv2_fixtures():
     """The measured f64 behavior (README "Focal self-calibration"): from
     the reference's fixed focal-3000 start, the f64 CPU solve of the cv2
     fixture detections ESCAPES the plateau to the true-focal optimum
-    (~760 px, sub-px rmse).  The f32 TPU run is the one that can land in
+    (~760 px, sub-px rmse).  An f32 device run is the one that can land in
     the 12 px plateau; this pins the f64 side of that documented split.
     Reference behavior: ar_slam_util.cpp:744-866 with fixed focal 3000
     (ar_slam_util.hpp:69)."""
@@ -222,8 +222,8 @@ def test_parity_f64_escapes_plateau_on_cv2_fixtures():
 
     import yaml as _yaml
 
-    from ar_slam_tpu.config import ArSlamConfig
-    from ar_slam_tpu.solve.batch import solve as solve_store
+    from arslam.config import ArSlamConfig
+    from arslam.solve.batch import solve as solve_store
 
     fixtures = os.path.join(os.path.dirname(__file__), "fixtures")
     with open(os.path.join(fixtures, "demo_detections.yaml")) as f:
@@ -284,8 +284,8 @@ def test_detect_max_side_working_resolution(tmp_path):
 
     from PIL import Image
 
-    from ar_slam_tpu.config import ArSlamConfig
-    from ar_slam_tpu.pipeline.engine import ArSlamEngine
+    from arslam.config import ArSlamConfig
+    from arslam.pipeline.engine import ArSlamEngine
 
     im = Image.open(IMAGES[0]).convert("RGB")
     big = im.resize((im.width * 2, im.height * 2), Image.BILINEAR)
@@ -296,11 +296,11 @@ def test_detect_max_side_working_resolution(tmp_path):
     cfg = dataclasses.replace(
         cfg, detect=dataclasses.replace(
             cfg.detect, max_side=max(im.width, im.height)))
-    engine = ArSlamEngine(config=cfg, use_tpu_detector=False)
+    engine = ArSlamEngine(config=cfg, use_device_detector=False)
     [(uid, dets, (w, h), _)] = engine.detect_images([str(big_path)])
     assert (w, h) == (im.width * 2, im.height * 2)
 
-    ref_engine = ArSlamEngine(use_tpu_detector=False)
+    ref_engine = ArSlamEngine(use_device_detector=False)
     [(_, ref_dets, _, _)] = ref_engine.detect_images([IMAGES[0]])
     assert sorted(t for t, _ in dets) == sorted(t for t, _ in ref_dets)
     ref = {t: c for t, c in ref_dets}
@@ -312,7 +312,7 @@ def test_load_images_service(tmp_path):
     """≙ LoadImages.srv contract (img_fns[] -> success+message) over the
     unix-socket control plane, including the empty-request error the client
     enforces (load_images_client.py:30-40)."""
-    from ar_slam_tpu.pipeline.service import LoadImagesServer, send_load_images
+    from arslam.pipeline.service import LoadImagesServer, send_load_images
 
     sock = str(tmp_path / "arslam.sock")
     server = LoadImagesServer(sock)
@@ -340,8 +340,8 @@ def test_event_log_replay(tmp_path):
     log (≙ the bag-record/replay workflow)."""
     import dataclasses
 
-    from ar_slam_tpu.config import ArSlamConfig, PipelineConfig
-    from ar_slam_tpu.pipeline.engine import ArSlamEngine
+    from arslam.config import ArSlamConfig, PipelineConfig
+    from arslam.pipeline.engine import ArSlamEngine
 
     log = tmp_path / "events.jsonl"
     cfg = ArSlamConfig(pipeline=PipelineConfig(event_log_path=str(log)))
@@ -360,7 +360,7 @@ def test_event_log_replay(tmp_path):
 
 
 def test_export_artifacts(demo_map):
-    from ar_slam_tpu.pipeline.engine import ArSlamEngine
+    from arslam.pipeline.engine import ArSlamEngine
 
     eng = ArSlamEngine()
     eng.load_map(demo_map)
@@ -381,7 +381,7 @@ def test_make_map_service(tmp_path):
     import threading
     import time
 
-    from ar_slam_tpu.pipeline.service import (
+    from arslam.pipeline.service import (
         LoadImagesServer,
         send_load_images,
         send_make_map,
@@ -422,8 +422,8 @@ def test_make_map_response_builds_yaml(tmp_path):
     """The serve-side MakeMap fulfilment: images in, solved map YAML out."""
     import argparse
 
-    from ar_slam_tpu.cli import _make_map_response
-    from ar_slam_tpu.graph import MapStore, load_yaml
+    from arslam.cli import _make_map_response
+    from arslam.graph import MapStore, load_yaml
 
     imgs = [f"/root/reference/ar_slam/resources/images/img{i}.jpg"
             for i in (1, 2, 3)]
@@ -448,8 +448,8 @@ def test_cli_config_file(tmp_path, capsys):
 
     import yaml as _yaml
 
-    from ar_slam_tpu.cli import _config
-    from ar_slam_tpu.config import ArSlamConfig
+    from arslam.cli import _config
+    from arslam.config import ArSlamConfig
 
     fn = tmp_path / "cfg.yaml"
     fn.write_text(_yaml.safe_dump({
@@ -474,7 +474,7 @@ def test_cli_config_file(tmp_path, capsys):
 def test_config_file_unknown_key_raises(tmp_path):
     import pytest as _pytest
 
-    from ar_slam_tpu.config import ArSlamConfig
+    from arslam.config import ArSlamConfig
 
     with _pytest.raises(ValueError, match="max_iteration"):
         ArSlamConfig.from_dict({"solver": {"max_iteration": 5}})
@@ -491,9 +491,9 @@ def test_stream_pipeline_e2e_matches_sequential():
     container vs single-threaded execution)."""
     import time
 
-    from ar_slam_tpu.config import ArSlamConfig, PipelineConfig
-    from ar_slam_tpu.pipeline.engine import ArSlamEngine
-    from ar_slam_tpu.pipeline.stream import StreamPipeline
+    from arslam.config import ArSlamConfig, PipelineConfig
+    from arslam.pipeline.engine import ArSlamEngine
+    from arslam.pipeline.stream import StreamPipeline
     import dataclasses
 
     cfg = dataclasses.replace(ArSlamConfig(),
@@ -582,9 +582,9 @@ def test_stream_pipeline_pub_period_paces_ingest():
     import dataclasses
     import time
 
-    from ar_slam_tpu.config import ArSlamConfig, PipelineConfig
-    from ar_slam_tpu.pipeline.engine import ArSlamEngine
-    from ar_slam_tpu.pipeline.stream import StreamPipeline
+    from arslam.config import ArSlamConfig, PipelineConfig
+    from arslam.pipeline.engine import ArSlamEngine
+    from arslam.pipeline.stream import StreamPipeline
 
     period = 0.1
     cfg = dataclasses.replace(
@@ -614,8 +614,8 @@ def test_event_log_hermetic_replay(tmp_path):
     import json
     import shutil
 
-    from ar_slam_tpu.config import ArSlamConfig, PipelineConfig
-    from ar_slam_tpu.pipeline.engine import ArSlamEngine
+    from arslam.config import ArSlamConfig, PipelineConfig
+    from arslam.pipeline.engine import ArSlamEngine
 
     # record from COPIES of the demo images so deleting them proves
     # hermeticity
@@ -642,3 +642,51 @@ def test_event_log_hermetic_replay(tmp_path):
     load_yaml(store, str(out))
     assert len(store.captures) == 3
     assert len(store.blocks) == n_blocks
+
+
+@pytest.mark.parametrize("env_dir", [True, False],
+                         ids=["env_var", "checkout"])
+def test_compile_cache_placement(env_dir, tmp_path, monkeypatch):
+    """JAX_COMPILATION_CACHE_DIR wins when set; otherwise the cache sits at
+    the fixed path inside the checkout."""
+    import jax
+
+    from arslam import cli
+
+    before = jax.config.jax_compilation_cache_dir
+    if env_dir:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        want = str(tmp_path)
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        want = os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), ".jax_cache")
+    try:
+        assert cli._enable_compile_cache() == want
+        assert jax.config.jax_compilation_cache_dir == want
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+
+
+def test_pgm_roundtrip_without_pillow(tmp_path, monkeypatch):
+    """Binary PGM reads and writes with NumPy alone (header comments
+    included) and agrees with PIL's decoder."""
+    import sys
+
+    from PIL import Image
+
+    from arslam.pipeline.ingest import load_image, read_pgm, write_pgm
+
+    img = np.random.default_rng(0).integers(0, 256, (37, 53)).astype(np.uint8)
+    path = tmp_path / "a.pgm"
+    write_pgm(str(path), img)
+    np.testing.assert_array_equal(np.asarray(Image.open(path)), img)
+    commented = tmp_path / "b.pgm"
+    commented.write_bytes(b"P5\n# made by hand\n53 37\n# depth\n255\n"
+                          + img.tobytes())
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    np.testing.assert_array_equal(read_pgm(str(path)), img)
+    np.testing.assert_array_equal(load_image(str(commented)), img)
+    (tmp_path / "c.pgm").write_bytes(b"P2\n2 1\n255\n0 1\n")
+    with pytest.raises(ValueError):
+        read_pgm(str(tmp_path / "c.pgm"))

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 from scipy.spatial.transform import Rotation
 
-from ar_slam_tpu.core import projection
+from arslam.core import projection
 
 ARUCO_SIZE = 0.0635
 RNG = np.random.default_rng(7)

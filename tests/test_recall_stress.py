@@ -8,7 +8,7 @@ recall the 3-window default buys over the single-window fast path
 (VERDICT r2 weak #3; the full-grid table lives in docs/detection.md).
 
 Runs the NumPy oracle (detect/reference.py) — the same recast algorithm
-the device pipeline is asserted equal to in test_tpu_detect.py — so the
+the device pipeline is asserted equal to in test_device_detect.py — so the
 test stays CPU-fast; tools/recall_bench.py runs the real device pipeline
 on the full grid.
 """
@@ -26,8 +26,8 @@ from tools.recall_bench import detect_cv2, render_scene, score  # noqa: E402
 
 
 def _oracle_detect(images, win_sizes):
-    from ar_slam_tpu.config import ArSlamConfig
-    from ar_slam_tpu.detect.reference import detect_markers
+    from arslam.config import ArSlamConfig
+    from arslam.detect.reference import detect_markers
 
     dcfg = ArSlamConfig().detect
     out = []
@@ -78,7 +78,7 @@ def _recall(dets, truths):
 
 @pytest.mark.slow
 def test_sweep_recall_at_least_cv2():
-    from ar_slam_tpu.config import ArSlamConfig
+    from arslam.config import ArSlamConfig
 
     windows = tuple(ArSlamConfig().detect.adaptive_thresh_win_sizes)
     images, truths = _corpus()
@@ -96,7 +96,7 @@ def test_sweep_recall_at_least_cv2():
 def test_sweep_beats_single_window_on_stress():
     """The 3-window default exists to buy recall; on the stress corpus it
     must find at least as many markers as the single-window fast path."""
-    from ar_slam_tpu.config import ArSlamConfig
+    from arslam.config import ArSlamConfig
 
     windows = tuple(ArSlamConfig().detect.adaptive_thresh_win_sizes)
     images, truths = _corpus(8)
@@ -106,12 +106,12 @@ def test_sweep_beats_single_window_on_stress():
 
 
 def _device_detect(images, windows, bs=4):
-    """The REAL jitted pipeline (detect_batch): runs on CPU XLA in the
-    default suite, on the chip under AR_SLAM_TEST_TPU=1."""
+    """The REAL jitted pipeline (detect_batch), on CPU XLA in the
+    default suite."""
     import jax.numpy as jnp
 
-    from ar_slam_tpu.config import ArSlamConfig
-    from ar_slam_tpu.detect.tpu_detect import DetectParams, detect_batch
+    from arslam.config import ArSlamConfig
+    from arslam.detect.device_detect import DetectParams, detect_batch
 
     dcfg = ArSlamConfig().detect
     params = DetectParams(win_sizes=tuple(windows),
@@ -140,11 +140,11 @@ def test_small_marker_stress_recall_at_least_cv2():
     below the reference (0.44 vs cv2 0.63, VERDICT r3 missing #1) — run
     through the REAL device pipeline, not the oracle.  This corpus fails
     on the round-3 decode (nearest-neighbor sampling, strict border/margin
-    gates, unpinned bf16 homography matmuls on TPU) and passes after the
+    gates, unpinned reduced-precision homography matmuls) and passes after the
     round-4 decode fixes."""
     import itertools
 
-    from ar_slam_tpu.config import ArSlamConfig
+    from arslam.config import ArSlamConfig
 
     rng = np.random.default_rng(0)
     images, truths = [], []

@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ar_slam_tpu.core import projection, seeding
+from arslam.core import projection, seeding
 
 ARUCO_SIZE = 0.0635
 

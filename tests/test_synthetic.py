@@ -4,7 +4,7 @@ per-(capture, tag) projection loop it replaced: identical visibility sets
 
 import numpy as np
 
-from ar_slam_tpu.utils.synthetic import _project_np, make_synthetic_map
+from arslam.utils.synthetic import _project_np, make_synthetic_map
 
 ARUCO_SIZE = 0.0635
 

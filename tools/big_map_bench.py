@@ -1,9 +1,9 @@
 """Single-chip LARGE-MAP benchmark: the round-1 memory-wall scale.
 
-Round 1's dense (T, 3+6C, 6) coupling slab hit ~5.8 GB at 10k tags / 4k
-captures — over a v5e's HBM before the solver even ran.  The round-2
-capture-sparse layout is O(observations); this tool proves the scale on one
-chip and measures iter/s with the implicit-Schur CG (the dense reduced
+Round 1's dense (T, 3+6C, 6) coupling slab was ~5.8 GB at 10k tags / 4k
+captures before the solver even ran.  The capture-sparse layout is
+O(observations); this tool proves the scale on one device and measures
+iter/s with the implicit-Schur CG (the dense reduced
 Cholesky is O((6C)^3) and is not meaningful at this capture count — ceres'
 DENSE_SCHUR would be in the same regime).
 
@@ -27,13 +27,12 @@ def main():
     ap.add_argument("--iters", type=int, default=12)
     ap.add_argument("--solver", choices=["cg", "dense"], default="cg")
     ap.add_argument("--profile", default=None, metavar="DIR",
-                    help="also trace one full solve; summarize with "
-                         "tools/trace_summary.py DIR --by scope")
+                    help="also trace one full solve (jax.profiler) into "
+                         "DIR")
     ap.add_argument("--cg-tol", type=float, default=None)
-    # 25 measured best at this scale: the SCHUR_JACOBI-preconditioned CG
-    # does not reach tol 1e-2 within 100 steps here, so the cap binds and
-    # the LM trust region absorbs the inexactness (final cost within 2% of
-    # the 100-step run at 2.1x the iteration rate: 3.3 vs 1.6 iter/s)
+    # the SCHUR_JACOBI-preconditioned CG does not reach tol 1e-2 within 100
+    # steps at this scale, so a cap binds and the LM trust region absorbs
+    # the inexactness; 25 steps landed within 2% of the 100-step cost
     ap.add_argument("--cg-iters", type=int, default=25)
     args = ap.parse_args()
 
@@ -43,12 +42,9 @@ def main():
 
     from bench import bench_lm, build_problem, log
 
-    try:
-        from ar_slam_tpu.cli import _enable_compile_cache
+    from arslam.cli import _enable_compile_cache
 
-        _enable_compile_cache()
-    except Exception:  # noqa: BLE001
-        pass
+    _enable_compile_cache()
 
     dev = jax.devices()[0]
     log(f"device: {dev}")
@@ -65,7 +61,7 @@ def main():
     # so a converged solve lands near rmse_px ~= 0.3.
     import numpy as np
 
-    from ar_slam_tpu.utils.ate import ate_rmse
+    from arslam.utils.ate import ate_rmse
 
     n_blocks = int(arrs.n_blocks)
     rmse_px = float(np.sqrt(2.0 * out["final_cost"] / (8 * n_blocks)))
@@ -78,7 +74,8 @@ def main():
         "value": round(out["iters_per_s"], 3),
         "unit": "iter/s",
         "extra": {
-            "device": str(dev),
+            "device": {"platform": dev.platform, "kind": dev.device_kind,
+                       "count": len(jax.devices())},
             "solver": args.solver,
             "blocks": n_blocks,
             "compile_s": round(out["compile_s"], 1),

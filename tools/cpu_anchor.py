@@ -1,6 +1,6 @@
 """One-time external CPU anchor for the BA + localization baselines.
 
-Round 1's ``vs_baseline`` compared the TPU solver against THIS REPO's own
+Round 1's ``vs_baseline`` compared the device solver against THIS REPO's own
 CPU float64 path — self-referential.  This tool runs an INDEPENDENT
 implementation — scipy.optimize.least_squares (Trust Region Reflective,
 sparse finite-difference Jacobian, lsmr sub-solver; the closest
@@ -22,7 +22,7 @@ Two modes:
 The residual model is an independent NumPy/SciPy re-implementation of the
 reference projection (ar_slam_util.cpp:131-172: inverse-pose
 translate-then-rotate, centered pixels, focal multiply), NOT a call into
-ar_slam_tpu kernels.
+arslam kernels.
 
 Usage: python tools/cpu_anchor.py [--mode ba|localize] [--tags 500]
        [--caps 200] [--max-iters 25]
@@ -45,7 +45,7 @@ def solve_pose_only_scipy(camera, tag_poses, tag_idx, corners, pose0,
     """Independent f64 pose-only solve: 6 unknowns, tags + camera frozen
     (≙ the reference's localizeOne Ceres problem with constant parameter
     blocks, ar_slam_util.cpp:950-972).  NumPy/SciPy residual model only —
-    no ar_slam_tpu kernels.
+    no arslam kernels.
 
     Args: camera (3,), tag_poses (T, 6), tag_idx (K,), corners (K, 4, 2)
     centered pixels, pose0 (6,) initial inverse capture pose.
@@ -85,9 +85,9 @@ def _mode_localize():
 
     import jax.numpy as jnp
 
-    from ar_slam_tpu.config import ArSlamConfig
-    from ar_slam_tpu.solve import localize_many, solve_batch
-    from ar_slam_tpu.graph import MapStore
+    from arslam.config import ArSlamConfig
+    from arslam.solve import localize_many, solve_batch
+    from arslam.graph import MapStore
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     fixture = os.path.join(repo, "tests", "fixtures", "demo_detections.yaml")
@@ -131,7 +131,7 @@ def _mode_localize():
 
     # synthetic corpus: hold out queries from a synthetic map, localize
     # with the kernel (f32) and scipy (f64)
-    from ar_slam_tpu.utils.synthetic import make_synthetic_map
+    from arslam.utils.synthetic import make_synthetic_map
 
     s_store, truth = make_synthetic_map(n_tags=40, n_caps=24, seed=7,
                                         noise_px=0.3)

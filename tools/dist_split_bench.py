@@ -55,10 +55,10 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     from bench import build_problem
-    from ar_slam_tpu.parallel import block_mesh
-    from ar_slam_tpu.parallel.dist_lm import (TagShardedProblem,
+    from arslam.parallel import block_mesh
+    from arslam.parallel.dist_lm import (TagShardedProblem,
                                               _dist_lm_runner)
-    from ar_slam_tpu.solve.lm import LMConfig
+    from arslam.solve.lm import LMConfig
 
     arrs, cap_poses, tag_poses = build_problem(args.tags, args.caps)
     config = LMConfig(max_iterations=8, function_tolerance=0.0,

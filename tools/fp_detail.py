@@ -36,7 +36,7 @@ def main():
 
     from tools.recall_bench import detect_repo, grid, render_scene
 
-    from ar_slam_tpu.config import ArSlamConfig
+    from arslam.config import ArSlamConfig
 
     rng = np.random.default_rng(args.seed)
     cfgs, images, truths = [], [], []

@@ -24,8 +24,8 @@ sys.path.insert(0, REPO)
 def detect_with(images, windows, **overrides):
     import jax.numpy as jnp
 
-    from ar_slam_tpu.config import ArSlamConfig
-    from ar_slam_tpu.detect.tpu_detect import DetectParams, detect_batch
+    from arslam.config import ArSlamConfig
+    from arslam.detect.device_detect import DetectParams, detect_batch
 
     dcfg = ArSlamConfig().detect
     params = DetectParams(win_sizes=tuple(windows),
@@ -67,7 +67,7 @@ def main():
 
     from tools.recall_bench import grid, render_scene, score
 
-    from ar_slam_tpu.config import ArSlamConfig
+    from arslam.config import ArSlamConfig
 
     rng = np.random.default_rng(args.seed)
     cfgs, images, truths = [], [], []

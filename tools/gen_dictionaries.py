@@ -31,7 +31,7 @@ def main():
             bits[i] = (inner > 127).astype(np.uint8)
         out[name] = bits
         print(name, bits.shape, "first marker:\n", bits[0])
-    dst = os.path.join(os.path.dirname(__file__), "..", "ar_slam_tpu",
+    dst = os.path.join(os.path.dirname(__file__), "..", "arslam",
                        "detect", "dictionaries.npz")
     np.savez_compressed(dst, **out)
     print("wrote", dst)

@@ -1,6 +1,6 @@
 """Generate test fixtures: Aruco detections for the demo images using
 OpenCV's detector as an independent oracle (test-only — the engine's own
-detector lives in ar_slam_tpu.detect).
+detector lives in arslam.detect).
 
 Writes tests/fixtures/demo_detections.yaml with centered-coordinate corners
 for both dictionaries, replicating the reference's detector settings

@@ -68,13 +68,13 @@ def main():
 
         jax.config.update("jax_platforms", "cpu")
     sys.path.insert(0, ".")
-    from ar_slam_tpu.cli import _enable_compile_cache
+    from arslam.cli import _enable_compile_cache
 
     _enable_compile_cache()
 
-    from ar_slam_tpu.config import ArSlamConfig
-    from ar_slam_tpu.solve.batch import solve
-    from ar_slam_tpu.utils.synthetic import make_synthetic_map
+    from arslam.config import ArSlamConfig
+    from arslam.solve.batch import solve
+    from arslam.utils.synthetic import make_synthetic_map
 
     results = {}
     for every in args.every:
@@ -110,7 +110,7 @@ def main():
         solve_wall = time.time() - t0
         save_wall = 0.0
         if args.save:
-            from ar_slam_tpu.graph import save_yaml
+            from arslam.graph import save_yaml
 
             t1 = time.time()
             save_yaml(store, args.save)

@@ -2,7 +2,7 @@
 
 Renders dictionary markers over a tilt x scale x blur x illumination x
 noise grid (synthetic scenes with known ground truth) and measures
-recall / precision for the repo's batched TPU detector (production
+recall / precision for the repo's batched device detector (production
 3-window sweep AND the single-window fast path) against OpenCV's
 detector with default parameters — the reference's configuration
 (aruco_detector.cpp:102-110 uses cv2 defaults except
@@ -34,7 +34,7 @@ DICTS = ("4X4_50", "5X5_100")
 def _marker_bitmap(dict_name: str, marker_id: int, cell_px: int):
     """(n*cell_px)^2 uint8 marker image from the committed dictionary bits
     (border included), nearest-upscaled — no cv2 dependency for rendering."""
-    from ar_slam_tpu.detect.dictionaries import get_dictionary
+    from arslam.detect.dictionaries import get_dictionary
 
     d = get_dictionary(dict_name)
     s = int(np.sqrt(d.rotations.shape[2]))
@@ -148,8 +148,8 @@ def score(per_dict, truth):
 def detect_repo(images, windows):
     import jax.numpy as jnp
 
-    from ar_slam_tpu.config import ArSlamConfig
-    from ar_slam_tpu.detect.tpu_detect import DetectParams, detect_batch
+    from arslam.config import ArSlamConfig
+    from arslam.detect.device_detect import DetectParams, detect_batch
 
     dcfg = ArSlamConfig().detect
     params = DetectParams(win_sizes=tuple(windows),
@@ -209,7 +209,7 @@ def grid(quick=False):
 
 
 def run(quick=False, seed=0):
-    from ar_slam_tpu.cli import _enable_compile_cache
+    from arslam.cli import _enable_compile_cache
 
     _enable_compile_cache()
     rng = np.random.default_rng(seed)
@@ -220,7 +220,7 @@ def run(quick=False, seed=0):
         images.append(img)
         truths.append(truth)
 
-    from ar_slam_tpu.config import ArSlamConfig
+    from arslam.config import ArSlamConfig
 
     windows = tuple(ArSlamConfig().detect.adaptive_thresh_win_sizes)
     results = {}

@@ -2,7 +2,7 @@
 
 Measures LM iterations/s of the sharded solver at several mesh sizes on
 whatever devices exist (virtual CPU mesh in CI — structural validation;
-real chips on a pod slice — the ICI scaling-efficiency number).
+real GPUs — the interconnect scaling-efficiency number).
 
 Usage:
   python tools/scaling_bench.py [--devices 1 2 4 8] [--tags 500]
@@ -11,8 +11,9 @@ Usage:
       multi-controller run (1 CPU device per process, gloo collectives);
       reports iter/s plus the overhead vs the same-size single-process
       mesh — the multi-controller data plane cost, ≙ "N>=2 hosts" in
-      BASELINE.md (on one machine the collectives cross process, not
-      ICI/DCN, so treat it as overhead validation, not ICI efficiency).
+      BASELINE.md (on one machine the collectives cross process, not a
+      network, so treat it as overhead validation).  The controllers and
+      the comparison always run on CPU devices, never on a card.
 """
 
 from __future__ import annotations
@@ -33,8 +34,8 @@ def _measure(mesh_sizes, args, label_stream=sys.stderr):
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     from bench import build_problem
-    from ar_slam_tpu.parallel import block_mesh, lm_solve_dist
-    from ar_slam_tpu.solve.lm import LMConfig
+    from arslam.parallel import block_mesh, lm_solve_dist
+    from arslam.solve.lm import LMConfig
 
     arrs, cap_poses, tag_poses = build_problem(args.tags, args.caps)
     config = LMConfig(max_iterations=args.iters, function_tolerance=0.0,
@@ -200,7 +201,7 @@ def main():
         print(
             "NOTE: virtual CPU mesh — all shards share one host's cores, so "
             "iter/s CANNOT increase with mesh size; this validates "
-            "structure/overhead only.  ICI efficiency needs real chips.",
+            "structure/overhead only.  Scaling efficiency needs real cards.",
             file=sys.stderr,
         )
     results, blocks = _measure(sizes, args)
